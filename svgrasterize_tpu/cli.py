@@ -1,6 +1,6 @@
-"""Command-line interface: SVG (or raw .path data) -> PNG on TPU.
+"""Command-line interface: SVG (or raw .path data) -> PNG on GPU.
 
-Flag-compatible with the reference CLI (/root/reference/svgrasterize.py:
+Flag-compatible with the reference CLI (svgrasterize.py:
 3796-3883): positional svg/output, -bg/-fg colors, -w width, -id element,
 -t extra transform, --linear-rgb, --fonts, --as-path.  Adds --profile for
 compile/execute timing breakdown.
@@ -27,7 +27,7 @@ from .utils.constants import DEVICE_FLOAT
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
-        prog="svgrasterize-tpu", description="TPU-native SVG rasterizer"
+        prog="svgrasterize-tpu", description="GPU SVG rasterizer"
     )
     parser.add_argument("svg", help="input SVG file (or .path raw path data)")
     parser.add_argument("output", help="output PNG file ('-' for stdout)")
@@ -49,7 +49,7 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--platform",
         default=os.environ.get("SVGR_PLATFORM"),
-        help="force a JAX platform (e.g. cpu, tpu); default: runtime's choice",
+        help="force a JAX platform (cpu, gpu); default: runtime's choice",
     )
     opts = parser.parse_args(argv)
 
@@ -63,18 +63,35 @@ def main(argv=None) -> int:
     # (8.6 s vs 1.2 s — collapse field composition and binning scale
     # with tile area) while its single-frame execute saving is <1 s.
     # The CLI renders each scene exactly once, so default to tile 32
-    # everywhere; SVGR_TILE still overrides.
-    os.environ.setdefault("SVGR_TILE", "32")
+    # everywhere; SVGR_TILE still overrides.  The setting is restored on
+    # return, so in-process callers keep their own tile default.
+    prev_tile = os.environ.get("SVGR_TILE")
+    os.environ["SVGR_TILE"] = prev_tile or "32"
+    try:
+        return _run(opts)
+    finally:
+        if prev_tile is None:
+            os.environ.pop("SVGR_TILE", None)
+        else:
+            os.environ["SVGR_TILE"] = prev_tile
+
+
+def _run(opts) -> int:
+    import jax
+
     # the persistent compile cache itself is configured by the package
     # import (svgrasterize_tpu._setup_compile_cache); enable the XLA-level
     # caches on top for CLI one-shots — but NOT on the CPU backend, where
     # the per-kernel XLA cache entries embed host machine features that
     # fail the AOT load check on replay (42 silent load-failures +
     # recompiles per material render; the program-level cache alone loads
-    # clean under the package's --xla_cpu_max_isa pin)
-    if os.environ.get("SVGR_COMPILE_CACHE", "1") not in ("", "0") and (
-        opts.platform or ""
-    ).lower() != "cpu":
+    # clean under the package's --xla_cpu_max_isa pin).  Gate on the
+    # backend JAX resolved, not on the --platform flag: a run without the
+    # flag can land on the CPU too.
+    if (
+        os.environ.get("SVGR_COMPILE_CACHE", "1") not in ("", "0")
+        and jax.default_backend() != "cpu"
+    ):
         jax.config.update("jax_persistent_cache_enable_xla_caches", "all")
 
     if not os.path.exists(opts.svg):

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import Callable, Sequence
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -111,7 +112,10 @@ class Layer:
         layer = self.convert(pre_alpha=False, linear_rgb=linear_rgb)
         m = jnp.asarray(matrix[:, :4], DEVICE_FLOAT)
         b = jnp.asarray(matrix[:, 4], DEVICE_FLOAT)
-        image = jnp.clip(layer.image @ m.T + b, 0, 1)
+        image = jnp.matmul(
+            layer.image, m.T, precision=jax.lax.Precision.HIGHEST
+        )
+        image = jnp.clip(image + b, 0, 1)
         return Layer(image, layer.offset, False, linear_rgb)
 
     def convolve(self, kernel, linear_rgb: bool = True) -> "Layer":

@@ -1,7 +1,7 @@
 """Whole-scene batched rasterization: one device dispatch per scene.
 
-This is the TPU-first replacement for the reference's per-path interpreter
-loop (/root/reference/svgrasterize.py:649-688).  The host lowers a scene into
+This is the batched replacement for the reference's per-path interpreter
+loop (svgrasterize.py:649-688).  The host lowers a scene into
 a flat, z-ordered list of (tile, segments, paint) work items (see
 render_plan.py); this module executes ALL of them in a single jitted program:
 
@@ -34,13 +34,7 @@ from .coverage import winding_impl
 
 
 def _winding(lines, t_size: int):
-    """Winding for one work item's edge list.
-
-    Measured on v5e: the XLA formulation beats the Pallas kernel under the
-    batched vmap shape (125ms vs 419ms for a 2048x512-segment scene) — the
-    per-(item, block) program granularity is too fine for Mosaic dispatch.
-    ops/pallas_coverage.py remains available for large single frames.
-    """
+    """Winding for one work item's edge list (vmapped over items)."""
     return winding_impl(lines, t_size, t_size)
 
 # paint kinds (must match render_plan.PAINT_*)
@@ -62,8 +56,8 @@ def _interp_stops(t, offsets, colors):
     """Piecewise-linear stop lookup; offsets (K,), colors (K, 4), t (...).
 
     Telescoping form: color(t) = c0 + sum_k clip((t-o_{k-1})/(o_k-o_{k-1}))
-    * (c_k - c_{k-1}).  Pure elementwise VPU work — per-pixel searchsorted +
-    gather lowers to scalar gathers on TPU and is ~100x slower.
+    * (c_k - c_{k-1}).  Pure elementwise work: no per-pixel searchsorted or
+    gather.
     """
     k = offsets.shape[0]
     out = jnp.broadcast_to(colors[0], (*t.shape, 4))
@@ -193,7 +187,10 @@ def _raster_item(item, t_size: int):
         mask = mask * item["_clip_cov"]
     mask = jnp.where(mask < 1e-6, 0.0, mask) * item["opacity"]
     if "_mask_tex" in item:
-        value = item["_mask_tex"][..., :3] @ _MASK_LUM
+        value = jnp.dot(
+            item["_mask_tex"][..., :3], _MASK_LUM,
+            precision=jax.lax.Precision.HIGHEST,
+        )
         mask = mask * jnp.where(item["mask_idx"] >= 0, value, 1.0)
     paint = _paint_item(item, item["tile_r"], item["tile_c"], t_size, item.get("_pat_tex"))
     if "_tex" in item:
@@ -272,9 +269,9 @@ def execute_items(
 
     if pool is not None:
         if pool.ndim == 3:
-            # the serving path keeps the pool channel-planar (P+1, T, 4T)
-            # with the scratch row already appended (fused-executor
-            # contract); convert back to interleaved tiles here
+            # the whole-plan program keeps the pool channel-planar
+            # (P+1, T, 4T) with the scratch row already appended; convert
+            # back to interleaved tiles here
             pool = pool.reshape(-1, t_size, 4, t_size).transpose(0, 1, 3, 2)
             pool = pool[:-1]
         # scratch row so tex_idx == -1 gathers stay in bounds
@@ -344,16 +341,12 @@ def execute_items(
     return canvas[:num_tiles]
 
 
-@partial(jax.jit, static_argnames=("t_size", "num_tiles", "features"))
+@partial(jax.jit, static_argnames=("t_size", "num_tiles"))
 def execute_plan(
     items: dict, t_size: int, num_tiles: int, big_lines=(), pool=None,
-    patterns=None, clip_cov=None, features=None, prepared=None,
+    patterns=None, clip_cov=None,
 ):
     """Run a whole lowered scene; returns the canvas (num_tiles, T, T, 4).
-
-    features: static capability set from fused_exec.plan_features — when
-    not None the fully-fused Pallas executor runs instead (TPU only; one
-    kernel, no chunk scan / gather / scatter traffic).
 
     items: dict of per-item arrays, all with leading dim N (a multiple of
     CHUNK_ITEMS), z-sorted by (tile_id, z).  Padding items carry
@@ -373,11 +366,4 @@ def execute_plan(
     — scenes where hundreds of draws share a clip pay for it once, and
     the executors just multiply the field into the item mask.
     """
-    if features is not None:
-        from .fused_exec import execute_items_fused
-
-        return execute_items_fused(
-            items, t_size, num_tiles, big_lines, pool, patterns, clip_cov,
-            features, prepared=prepared,
-        )
     return execute_items(items, t_size, num_tiles, big_lines, pool, patterns, clip_cov)

@@ -135,14 +135,13 @@ def _band_matrix(taps, n_in: int):
 
 
 @jax.jit
-def _convolve_separable_mxu(image, u, v):
+def _convolve_separable_banded(image, u, v):
     """Full separable convolution as two banded-operator matmuls.
 
-    A depthwise conv with C=4 runs on the VPU with most lanes idle; the
-    same contraction as (h_out, h) @ (h, w*ch) and (h_out*ch, w) @ (w, w_out)
-    matmuls rides the MXU — measured ~2x end-to-end on filter-heavy scenes
-    (icons.svg serving).  HIGHEST precision keeps f32-accurate taps so the
-    golden parity thresholds (max diff 9/255) are unaffected."""
+    The same contraction as a depthwise conv with C=4, written as
+    (h_out, h) @ (h, w*ch) and (h_out*ch, w) @ (w, w_out) matmuls.
+    HIGHEST precision keeps f32-accurate taps so the golden parity
+    thresholds (max diff 9/255) are unaffected."""
     h, w, ch = image.shape
     bu = _band_matrix(u, h).astype(image.dtype)
     bv = _band_matrix(v, w).astype(image.dtype)
@@ -161,7 +160,7 @@ def _convolve_separable_mxu(image, u, v):
 
 def convolve_separable(image, u, v):
     """Full separable convolution; SVGR_BLUR=conv selects the depthwise-conv
-    path (the MXU banded-matmul formulation is the default)."""
-    if os.environ.get("SVGR_BLUR", "mxu") == "conv":
+    path (the banded-matmul formulation is the default)."""
+    if os.environ.get("SVGR_BLUR", "banded") == "conv":
         return _convolve_separable_conv(image, u, v)
-    return _convolve_separable_mxu(image, u, v)
+    return _convolve_separable_banded(image, u, v)

@@ -2,7 +2,7 @@
 
 This replaces the reference's scalar font-rs scanline loop
 (/root/reference/svgrasterize.py:2213-2304) with a closed-form, branch-free
-per-pixel formulation that maps directly onto the TPU VPU:
+per-pixel formulation that maps directly onto dense vector hardware:
 
 For an edge (a line segment) and a pixel cell (r, c), clip the edge to the
 row slab [r, r+1] giving a linear function X(y) over [y_lo, y_hi].  The
@@ -17,7 +17,7 @@ Summing over all edges yields *exactly* the same value as the reference's
 accumulate-then-cumsum algorithm (both compute the exact signed trapezoid
 areas), but every (edge, pixel) pair is independent — a perfect fit for dense
 vector hardware.  Work is O(S * H * W) per call, so callers tile by path bbox
-(see render.py) or by canvas tiles (see ops/pallas_coverage.py) to keep S
+(see render.py) or by canvas tiles (see ops/batch_exec.py) to keep S
 small per region.
 
 Boundary semantics match the reference: rows outside [0, H) are dropped,
@@ -34,8 +34,8 @@ import jax.numpy as jnp
 
 from ..utils.constants import DEVICE_FLOAT
 
-# segments per scan step: keeps the fused (chunk, H, W) intermediate in VMEM
-# for typical bucketed path bboxes.
+# segments per scan step: bounds the (chunk, H, W) intermediate for
+# typical bucketed path bboxes.
 _CHUNK = 32
 
 

@@ -1,4 +1,4 @@
-"""Gradient paint servers evaluated on device (elementwise, VPU-friendly).
+"""Gradient paint servers evaluated on device (elementwise).
 
 Linear gradients project pixel coordinates onto the gradient axis; radial
 gradients solve the pixman two-circle interpolation equation
@@ -33,7 +33,9 @@ def apply_affine(points, matrix):
     """Apply a 2x3 affine (rows of [a, b, t]) to (..., 2) points."""
     m = matrix[:, :2]
     t = matrix[:, 2]
-    return points @ m.T + t
+    # pixel coordinates reach the thousands: a reduced-precision (TF32)
+    # contraction would shift gradients visibly
+    return jnp.matmul(points, m.T, precision=jax.lax.Precision.HIGHEST) + t
 
 
 def spread(offsets, mode: str):
@@ -84,7 +86,10 @@ def linear_fill(
     pixels = pixel_grid(height, width, viewport_offset[0], viewport_offset[1])
     pixels = apply_affine(pixels, affine)
     vec = p1 - p0
-    t = ((pixels - p0) @ vec) / jnp.maximum(vec @ vec, 1e-30)
+    hi = jax.lax.Precision.HIGHEST
+    t = jnp.matmul(pixels - p0, vec, precision=hi) / jnp.maximum(
+        jnp.dot(vec, vec, precision=hi), 1e-30
+    )
     return interpolate_stops(spread(t, spread_method), stop_offsets, stop_colors)
 
 

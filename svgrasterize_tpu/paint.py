@@ -72,7 +72,7 @@ class RasterImage:
     clamp, the enclosing rect geometry supplies the AA boundary.
     An <image> element lowers to a rect filled by a single-cell Pattern
     whose sub-scene is this object, so raster drawing rides the ordinary
-    pattern paths (interpreter, batched executor, fused kernel) without a
+    pattern paths (interpreter and batched executor) without a
     new scene node kind.
     """
 

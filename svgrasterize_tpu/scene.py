@@ -12,6 +12,7 @@ import io
 import textwrap
 from typing import Any
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -169,7 +170,10 @@ class Scene(tuple):
             # mask value = luminance * alpha
             mask_layer = mask_layer.convert(pre_alpha=False, linear_rgb=linear_rgb)
             lum = jnp.asarray(color_ops.MASK_LUMINANCE, mask_layer.image.dtype)
-            value = (mask_layer.image[..., :3] @ lum) * mask_layer.image[..., 3]
+            value = jnp.dot(
+                mask_layer.image[..., :3], lum,
+                precision=jax.lax.Precision.HIGHEST,
+            ) * mask_layer.image[..., 3]
             mask_layer = Layer(value[..., None], mask_layer.offset, False, linear_rgb)
             out = Layer.compose([mask_layer, image], COMPOSE_IN, linear_rgb)
             if out is None:

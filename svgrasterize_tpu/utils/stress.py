@@ -1,20 +1,20 @@
-"""Pathological stress-scene generator: the anti-collapse worst case.
+"""Seeded scene generators: documents the repo builds itself, so every
+run (tests, the GPU smoke run, benchmarks) needs no downloaded assets.
 
-All perf evidence elsewhere is three demo files whose z-stacks collapse
-well (render_plan._collapse_runs) and whose pass mixes cluster cleanly.
-This generator builds the opposite on purpose: thousands of SMALL
+`stress_doc` is the anti-collapse worst case: thousands of SMALL
 overlapping items with an opacity GROUP interleaved after every
 gradient shape — group outputs are frame-dynamic pool reads (tex
 items), which are the only paints the static-run collapse can never
-precompose (solid AND gradient runs both collapse since round 4), so
-runs break at every other item and every item survives to the kernel's
-serial per-item loop; the pass mix per tile stays deep (the kvec
-step-padding worst case, see ops/fused_exec.kvec_cluster).
-Deterministic in (n_items, seed) so recorded numbers are comparable
-across rounds.
+precompose (solid AND gradient runs both collapse), so runs break at
+every other item and every item survives to the executor; the pass mix
+per tile stays deep.
 
-Used by tests/test_stress.py (slow lane) and bench.py's opt-in
-"stress_serve_ms" config.
+`filter_doc` is a filter-heavy icon sheet (opacity groups under
+feGaussianBlur / feDropShadow), `icon_doc` a small icon for atlas
+batches, and `text_doc` a line of text in the bundled SVG fonts.
+
+All are deterministic in their arguments, so recorded numbers are
+comparable across runs.
 """
 
 from __future__ import annotations
@@ -96,4 +96,125 @@ def stress_doc(n_items: int = 2000, size: int = 1024, seed: int = 0) -> str:
     return (
         f'<svg xmlns="http://www.w3.org/2000/svg" width="{size}" '
         f'height="{size}"><defs>{"".join(defs)}</defs>{"".join(body)}</svg>'
+    )
+
+
+def filter_doc(
+    n_groups: int = 32, width: int = 1114, height: int = 286, seed: int = 0
+) -> str:
+    """A filter-heavy icon sheet: n_groups opacity groups on a grid, every
+    group filtered by one of four feGaussianBlur or four feDropShadow
+    filters, with a crisp unfiltered outline over each icon.  The shape
+    of an icon-set preview page: each group is one isolation pass plus a
+    filter post-op, so the plan has one blur part per group."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    defs = []
+    for f in range(4):
+        defs.append(
+            f'<filter id="b{f}"><feGaussianBlur '
+            f'stdDeviation="{rng.uniform(0.8, 3.0):.2f}"/></filter>'
+        )
+        defs.append(
+            f'<filter id="d{f}"><feDropShadow dx="{rng.uniform(1, 3):.1f}" '
+            f'dy="{rng.uniform(1, 3):.1f}" '
+            f'stdDeviation="{rng.uniform(0.8, 2.0):.2f}" '
+            'flood-color="#000" flood-opacity="0.5"/></filter>'
+        )
+    for g in range(4):
+        defs.append(
+            f'<linearGradient id="g{g}" x1="0" y1="0" x2="1" y2="1">'
+            f'<stop offset="0" stop-color="rgb({rng.integers(0, 256)},'
+            f'{rng.integers(0, 256)},{rng.integers(0, 256)})"/>'
+            f'<stop offset="1" stop-color="rgb({rng.integers(0, 256)},'
+            f'{rng.integers(0, 256)},{rng.integers(0, 256)})"/>'
+            "</linearGradient>"
+        )
+
+    cols = max(1, -(-n_groups // 2))
+    rows = -(-n_groups // cols)
+    cw, ch = width / cols, height / rows
+    body = []
+    for i in range(n_groups):
+        x0, y0 = (i % cols) * cw, (i // cols) * ch
+        cx, cy = x0 + cw / 2, y0 + ch / 2
+        r = 0.32 * min(cw, ch)
+        flt = f"{'bd'[i % 2]}{(i // 2) % 4}"
+        color = (
+            f"rgb({rng.integers(0, 256)},{rng.integers(0, 256)},"
+            f"{rng.integers(0, 256)})"
+        )
+        body.append(
+            f'<g opacity="{rng.uniform(0.5, 0.95):.2f}" filter="url(#{flt})">'
+            f'<circle cx="{cx:.1f}" cy="{cy:.1f}" r="{r:.1f}" '
+            f'fill="url(#g{i % 4})"/>'
+            f'<rect x="{cx - r / 2:.1f}" y="{cy - r / 2:.1f}" '
+            f'width="{r:.1f}" height="{r:.1f}" fill="{color}" '
+            f'transform="rotate({rng.uniform(0, 90):.1f} {cx:.1f} {cy:.1f})"/>'
+            "</g>"
+            f'<path d="M{cx - r:.1f} {cy:.1f} Q{cx:.1f} {cy - 1.4 * r:.1f} '
+            f'{cx + r:.1f} {cy:.1f}" fill="none" stroke="#202020" '
+            'stroke-width="1.5"/>'
+        )
+    return (
+        f'<svg xmlns="http://www.w3.org/2000/svg" width="{width}" '
+        f'height="{height}"><defs>{"".join(defs)}</defs>{"".join(body)}</svg>'
+    )
+
+
+def icon_doc(seed: int, size: int = 48) -> str:
+    """A small icon: a gradient badge, a few solid shapes and a stroke,
+    different for every seed (distinct documents for atlas batches)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def rgb():
+        return (
+            f"rgb({rng.integers(0, 256)},{rng.integers(0, 256)},"
+            f"{rng.integers(0, 256)})"
+        )
+
+    c = size / 2
+    parts = [
+        f'<defs><radialGradient id="r" fx="{rng.uniform(0.2, 0.5):.2f}" '
+        f'fy="{rng.uniform(0.2, 0.5):.2f}"><stop offset="0" '
+        f'stop-color="{rgb()}"/><stop offset="1" stop-color="{rgb()}"/>'
+        "</radialGradient></defs>",
+        f'<circle cx="{c}" cy="{c}" r="{0.45 * size:.1f}" fill="url(#r)"/>',
+    ]
+    for _ in range(int(rng.integers(2, 5))):
+        x, y = rng.uniform(0.15, 0.6, 2) * size
+        w, h = rng.uniform(0.15, 0.35, 2) * size
+        parts.append(
+            f'<rect x="{x:.1f}" y="{y:.1f}" width="{w:.1f}" height="{h:.1f}" '
+            f'rx="{0.2 * w:.1f}" fill="{rgb()}" '
+            f'fill-opacity="{rng.uniform(0.6, 1):.2f}"/>'
+        )
+    a, b = rng.uniform(0.2, 0.8, 2) * size
+    parts.append(
+        f'<path d="M{0.2 * size:.1f} {a:.1f} L{c:.1f} {b:.1f} '
+        f'L{0.8 * size:.1f} {a:.1f}" fill="none" stroke="{rgb()}" '
+        f'stroke-width="{rng.uniform(1, 3):.1f}" stroke-linecap="round"/>'
+    )
+    return (
+        f'<svg xmlns="http://www.w3.org/2000/svg" width="{size}" '
+        f'height="{size}">{"".join(parts)}</svg>'
+    )
+
+
+def text_doc(
+    text: str = "The quick brown fox jumps over the lazy dog, 0123456789",
+    width: int = 960, height: int = 64, font_size: float = 28.0,
+) -> str:
+    """One line of text set in the bundled SVG fonts (sans, serif, mono)."""
+    y = 0.68 * height
+    return (
+        f'<svg xmlns="http://www.w3.org/2000/svg" width="{width}" '
+        f'height="{height}"><rect width="{width}" height="{height}" '
+        f'fill="#fafafa"/><text x="8" y="{y:.0f}" font-size="{font_size}" '
+        f'font-family="Source Sans Pro" fill="#202040">{text} '
+        '<tspan font-family="Source Code Pro" fill="#a03020">x => y</tspan>'
+        "</text></svg>"
     )

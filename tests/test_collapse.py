@@ -2,7 +2,7 @@
 
 A run of z-consecutive same-tile solid items with no pool/pattern reads is
 scene-static, so lowering precomposes it into one full-coverage "field"
-item (premultiplied RGBA plane streamed through the pregrad paint path).
+item (a premultiplied RGBA plane gathered from the plan's field stack).
 These tests pin: (a) the collapse actually fires, (b) plan output is
 unchanged vs SVGR_COLLAPSE=0, (c) the interpreter oracle still agrees,
 (d) the sharded path replicates the plan-global field stack correctly.
@@ -105,29 +105,6 @@ def test_collapse_matches_interpreter_oracle(monkeypatch):
     )
 
 
-def test_collapse_fused_interp_matches_xla(monkeypatch):
-    """Field items through the fused kernel (interpret mode): the plan
-    must select the fused path WITH pregrad_paint (the field rides the
-    streamed paint), and match the XLA executor bit-for-bit — both read
-    the same host-precomposed field."""
-    from svgrasterize_tpu.ops.fused_exec import plan_features
-
-    low1, _ = _plan(DOC, "1", monkeypatch)
-    assert _n_field(low1) > 0
-    monkeypatch.setenv("SVGR_FUSED", "0")
-    a = _tiles(execute_lowered(low1, (0, 0), False))
-    monkeypatch.setenv("SVGR_FUSED", "interp")
-    monkeypatch.setenv("SVGR_COLLAPSE", "1")
-    low2, _ = _plan(DOC, "1", monkeypatch)
-    feats = plan_features(
-        low2.items, low2.bigs, low2.clips, None, None, low2.tile,
-        low2.grid[0] * low2.grid[1],
-    )
-    assert feats is not None and "pregrad_paint" in feats, feats
-    b = _tiles(execute_lowered(low2, (0, 0), False))
-    np.testing.assert_allclose(a, b, atol=1e-6)
-
-
 @pytest.mark.parametrize("n_devices", [2, 8])
 def test_collapse_sharded_replicates_field_stack(n_devices, monkeypatch):
     low1, _ = _plan(DOC, "1", monkeypatch)
@@ -156,16 +133,7 @@ def test_collapse_sharded_replicates_field_stack(n_devices, monkeypatch):
     np.testing.assert_allclose(out, ref, atol=1e-6)
 
 
-def test_collapse_fields_subselect_per_chunk(monkeypatch):
-    """Canvas-chunked fused launches must carry only the field rows their
-    own items reference (remapped chunk-local) — round 3 attached the
-    plan-global stack to every chunk, which at 3840^2 multiplied a
-    ~134 MB stack by the chunk count.  Bit-exact vs the XLA executor."""
-    import svgrasterize_tpu.render_plan as rp
-    from svgrasterize_tpu.ops import batch_exec
-    from svgrasterize_tpu.ops.fused_exec import execute_items_fused
-
-    monkeypatch.setenv("SVGR_FUSED", "interp")
+def _overlap_doc() -> str:
     body = []
     for i in range(40):
         x, y = (i * 61) % 560, (i * 37) % 120
@@ -177,38 +145,35 @@ def test_collapse_fields_subselect_per_chunk(monkeypatch):
             f'fill="#22{(i * 53) % 256:02x}{(i * 29) % 256:02x}" '
             'fill-opacity="0.5"/>'
         )
-    doc = (
+    return (
         '<svg xmlns="http://www.w3.org/2000/svg" width="640" height="192">'
         + "".join(body) + "</svg>"
     )
-    scene, _ids, _size = scene_from_str(doc)
-    low = lower_scene(scene, TR, (0, 0, 192, 640), False, tile=32)
-    nt = low.grid[0] * low.grid[1]
-    full_rows = low.items["field"].shape[0]
-    assert int((low.items["field_idx"] >= 0).sum()) > 50
-    monkeypatch.setenv("SVGR_VMEM_BUDGET", "700000")
-    chunks = rp._chunk_fused_plan(
-        low.items, low.bigs, low.clips, 32, nt, for_vout=True
+
+
+@pytest.mark.parametrize("which", ["mixed", "overlap"])
+def test_collapsed_plan_at_tile32_matches_interpreter(which, monkeypatch):
+    """Collapsed plans at tile 32 (many field items, several per tile run)
+    served through the whole-plan program agree with the per-path
+    interpreter."""
+    import svgrasterize_tpu.render_plan as rp
+    from svgrasterize_tpu.core.layer import merge_at
+
+    doc = DOC if which == "mixed" else _overlap_doc()
+    monkeypatch.setenv("SVGR_COLLAPSE", "1")
+    scene, _ids, size = scene_from_str(doc)
+    w, h = int(size[0]), int(size[1])
+    compiled = rp.compile_scene(scene, TR, (0, 0, h, w), False, tile=32)
+    assert _n_field(compiled._lowered) > (50 if which == "overlap" else 0)
+    fast = np.asarray(compiled.render().image)
+    rp.HYBRID_ENABLED = False
+    try:
+        slow, _hull = scene.render(TR, viewport=(0, 0, h, w))
+    finally:
+        rp.HYBRID_ENABLED = True
+    canvas = jnp.zeros((h, w, 4), dtype=jnp.float32)
+    canvas = merge_at(
+        canvas, slow.convert(pre_alpha=True, linear_rgb=False).image,
+        slow.offset,
     )
-    assert chunks is not None and len(chunks) >= 2
-    for c in chunks:
-        if "items" in c and "field" in c["items"]:
-            assert c["items"]["field"].shape[0] < full_rows
-    parts = []
-    for c in chunks:
-        if "zero_rows" in c:
-            parts.append(np.zeros((c["zero_rows"], 32, 32, 4), np.float32))
-            continue
-        out = execute_items_fused(
-            c["items"], 32, c["num_tiles"], c["bigs"], None, None,
-            c["clips"], c["features"], prepared=c.get("prepared"),
-        )
-        parts.append(np.asarray(out))
-    got = np.concatenate(parts, 0)
-    ref = np.asarray(batch_exec.execute_plan(
-        {k: jnp.asarray(v) for k, v in low.items.items()
-         if not k.startswith("_")},
-        32, nt, tuple(jnp.asarray(b) for b in low.bigs), None, None,
-        jnp.asarray(low.clips) if low.clips.shape[0] else None,
-    ))
-    np.testing.assert_allclose(got, ref, atol=1e-6)
+    np.testing.assert_allclose(fast, np.asarray(canvas), atol=2e-3)

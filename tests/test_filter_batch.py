@@ -135,20 +135,21 @@ def test_folded_chunk_matches_default():
 
 
 @pytest.mark.parametrize("gamma", [False, True], ids=["nogamma", "gamma"])
-def test_pallas_chunk_matches_default(gamma):
-    """The fused Pallas chunk kernel (SVGR_BLUR_PALLAS, interpret mode on
-    CPU) must reproduce the XLA chunk chain to f32 matmul rounding —
-    including 1x1 spans, SourceAlpha members, and both gamma chains."""
+def test_chunk_planar_matches_interleaved(gamma):
+    """apply_chunk on a channel-planar canvas (the whole-plan program's
+    layout) equals the interleaved-canvas path row for row — including
+    1x1 spans, SourceAlpha members, and both gamma chains."""
     import jax.numpy as jnp
 
     from svgrasterize_tpu.ops import filter_batch as fb
+    from svgrasterize_tpu.ops.layout import from_planar, to_planar
 
     rng = np.random.default_rng(11)
     T = 32
     for NSi, NSj, NOi, NOj, B in [(1, 1, 1, 1, 2), (2, 3, 3, 2, 3)]:
         S, O = NSi * NSj, NOi * NOj
         n_rows = 12
-        canvas = jnp.asarray(rng.random((n_rows, T, 4 * T)), jnp.float32)
+        canvas = jnp.asarray(rng.random((n_rows, T, T, 4)), jnp.float32)
         lut = rng.integers(-1, n_rows, (B, S)).astype(np.int32)
         u = rng.random(5)
         u /= u.sum()
@@ -172,15 +173,7 @@ def test_pallas_chunk_matches_default(gamma):
             "out_idx": out_idx,
             "pool_idx": list(range(len(out_idx))),
         }
-        prev = os.environ.get("SVGR_BLUR_PALLAS")
-        try:
-            os.environ["SVGR_BLUR_PALLAS"] = "0"
-            ref = np.asarray(fb.apply_chunk(canvas, ck, T, False, planar=True))
-            os.environ["SVGR_BLUR_PALLAS"] = "interp"
-            got = np.asarray(fb.apply_chunk(canvas, ck, T, False, planar=True))
-        finally:
-            if prev is None:
-                os.environ.pop("SVGR_BLUR_PALLAS", None)
-            else:
-                os.environ["SVGR_BLUR_PALLAS"] = prev
-        np.testing.assert_allclose(got, ref, atol=2e-6)
+        ref = np.asarray(fb.apply_chunk(canvas, ck, T, False, planar=False))
+        got = fb.apply_chunk(to_planar(canvas), ck, T, False, planar=True)
+        assert ref.shape == (len(out_idx), T, T, 4)
+        np.testing.assert_allclose(np.asarray(from_planar(got)), ref, atol=2e-6)

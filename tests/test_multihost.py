@@ -1,9 +1,9 @@
-"""Multi-host (DCN) path: real jax.distributed processes on CPU devices.
+"""Multi-host path: real jax.distributed processes on CPU devices.
 
 spawn_local launches separate OS processes, each with its own virtual
 device set, wires them through a jax.distributed coordinator, and runs the
 sharded lowered pipeline over the global mesh — the same code path a
-multi-host TPU pod runs, minus the hardware (parallel/distributed.py).
+multi-host deployment runs, minus the hardware (parallel/distributed.py).
 """
 
 import re

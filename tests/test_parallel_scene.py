@@ -195,48 +195,24 @@ def test_balanced_split_skew_stress():
     assert bal["skew"] < 2.0, f"stress skew {bal['skew']:.2f}"
 
 
-def test_sharded_fused_executor_interpret():
-    """The fused Pallas executor under shard_map (interpret mode) matches
-    the XLA sharded path shard-for-shard — and provably RAN: round 2
-    shipped zero-filled partition pads that read as phantom pattern items,
-    so plan_features rejected every pattern-free sharded program and this
-    test compared the XLA executor against itself."""
-    import os
-
-    from svgrasterize_tpu.ops.fused_exec import fallback_audit
-    from svgrasterize_tpu.parallel.scene import sharded_exec_fn
-    from svgrasterize_tpu.render_plan import execute_lowered
+def test_sharded_multipass_plan_tile32_compiled_scene():
+    """The serving API with a mesh: CompiledScene(mesh=...) over a 4-device
+    "data" mesh renders the multi-pass plan (every isolation group and
+    the main stream sharded) exactly like the single-device whole-plan
+    program, at tile 32 (small tiles give every shard several tile runs)."""
+    from svgrasterize_tpu.render_plan import CompiledScene
 
     scene, _ids, _size = scene_from_str(MULTIPASS_DOC)
     tr = Transform().matrix(0, 1, 0, 1, 0, 0)
-    # tile 32: the CPU-default tile 128 blows the per-shard VMEM budget and
-    # would legitimately (but vacuously) fall back
     lowered = lower_scene(scene, tr, (0, 0, 300, 400), False, tile=32)
-    assert lowered is not None
+    assert lowered is not None and lowered.groups
+    viewport = (0, 0, 300, 400)
+    ref = np.asarray(CompiledScene(lowered, viewport, False).render().image)
+    again = lower_scene(scene, tr, viewport, False, tile=32)
     mesh = Mesh(np.asarray(jax.devices()[:4]), ("data",))
-    prev = os.environ.get("SVGR_FUSED")
-    try:
-        os.environ["SVGR_FUSED"] = "0"
-        ref = np.asarray(
-            execute_lowered(lowered, (0, 0), False, exec_fn=sharded_exec_fn(mesh))
-        )
-        os.environ["SVGR_FUSED"] = "interp"
-        launches0, log0 = fallback_audit()
-        out = np.asarray(
-            execute_lowered(lowered, (0, 0), False, exec_fn=sharded_exec_fn(mesh))
-        )
-        launches1, log1 = fallback_audit()
-    finally:
-        if prev is None:
-            os.environ.pop("SVGR_FUSED", None)
-        else:
-            os.environ["SVGR_FUSED"] = prev
-    assert log1[len(log0):] == (), (
-        f"fused path silently fell back: {log1[len(log0):]}"
+    out = np.asarray(
+        CompiledScene(again, viewport, False, mesh=mesh).render().image
     )
-    # every program of the multi-pass plan (isolation groups + main) must
-    # have launched the fused kernel
-    assert launches1 - launches0 >= 1 + len(lowered.groups)
     np.testing.assert_allclose(out, ref, atol=1e-5)
 
 

@@ -126,7 +126,7 @@ def test_random_text_matches_reference(db, ref_db, reference, seed):
     from svgrasterize_tpu.core.transform import Transform
     from svgrasterize_tpu.frontend.svg import scene_from_xml
 
-    words = ["Alpha", "fi flow", "TPU raster!", "quick brown fox", "We offer AVATAR"]
+    words = ["Alpha", "fi flow", "GPU raster!", "quick brown fox", "We offer AVATAR"]
     r = np.random.default_rng(seed)
     parts = []
     for _ in range(4):
